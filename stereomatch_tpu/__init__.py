@@ -1,13 +1,13 @@
-"""stereomatch_tpu — a TPU-native dense two-view stereo engine.
+"""stereomatch_tpu — a dense two-view stereo engine in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capability surface of the
+Built from scratch in JAX/XLA with the capability surface of the
 reference C++/CUDA codebase lr-xiang/StereoMatch: calibration-driven
 rectification, census/BT/ZNCC/AD-gradient matching-cost volumes (plus mc-cnn
 cost-volume ingestion), three aggregation backends (SGBM 8-path DP as
 vectorized scans, Stereo3DMST segment-tree filtering, slanted-plane
 PatchMatch), WTA + subpixel disparity selection, LR consistency / occlusion
 fill / weighted median post-processing, variational refinement, and 3D
-reprojection — sharded over TPU meshes by image tiles and disparity slabs.
+reprojection — sharded over device meshes by image tiles and disparity slabs.
 """
 
 __version__ = "0.1.0"

@@ -155,7 +155,7 @@ def main(argv=None):
         from ..config import CoupledConfig
         from ..models.coupled import coupled_patchmatch_stereo
         from ..pipelines import to_bgr255
-        from .stereo_yin import builtin_cost_volumes
+        from ..models.costvolume import builtin_cost_volumes
         import jax
 
         with timer.stage("coupled"):
@@ -173,7 +173,7 @@ def main(argv=None):
         from ..config import MSTConfig
         from ..models.mst import mst_stereo
         from ..models.sgbm_mst import sgbm_mst_stereo
-        from .stereo_yin import builtin_cost_volumes
+        from ..models.costvolume import builtin_cost_volumes
 
         bgr_l = jnp.asarray(np.asarray(left, np.float32)[..., ::-1])
         bgr_r = jnp.asarray(np.asarray(right, np.float32)[..., ::-1])

@@ -4,8 +4,7 @@ The reference processes one hard-coded frame per run (stereo_opencv.cpp
 loads a single id). This app runs the whole bundled sequence
 (ids 20, 40, 60, 61, 80) through the SPMD cost-volume pipeline with frames
 data-parallel over the mesh's "frame" axis and rows tiled over "tile"
-(SURVEY.md §5 streaming-video config; DCN would distribute frames across
-hosts on a real pod).
+(SURVEY.md §5 streaming-video config). On one device the mesh is 1x1.
 """
 
 from __future__ import annotations
@@ -78,11 +77,6 @@ def run(
         )
 
     devices = jax.devices()
-    if len(devices) < 2:
-        try:
-            devices = jax.devices("cpu")
-        except RuntimeError:
-            pass
     nf = n_frame or max(1, min(len(ids), len(devices) // 2))
     nt = max(1, len(devices) // nf)
     mesh = make_mesh(n_tile=nt, n_frame=nf, devices=devices[: nf * nt])
@@ -172,7 +166,7 @@ def run_mst(
     import jax
     import jax.numpy as jnp
 
-    from ..apps.stereo_yin import builtin_cost_volumes
+    from ..models.costvolume import builtin_cost_volumes
     from ..config import MSTConfig
     from ..models.mst import build_view_forest
     from ..ops.mst import labels_to_disparity, mst_pms_optimize

@@ -170,7 +170,7 @@ class PatchMatchConfig:
     (1-alpha)*min(||dc||_1, tau_c) + alpha*min(||dgrad||_1, tau_g).
     GPU reference (src/PatchMatchStereoGPU.cu:861-998, :1740-2010).
 
-    The TPU build evaluates the window cost on a subsampled tap grid
+    This build evaluates the window cost on a subsampled tap grid
     (``tap_stride``) instead of materializing the rows*cols*35*35 weight
     tensor of pm.cpp:447-487 — same trick the reference's own huber variant
     uses (window subsampled stride 5, .cu:3126-3128).
@@ -193,7 +193,7 @@ class PatchMatchConfig:
     metric: str = "grad_sign"
     # Storage dtype of the per-tap streamed/gathered feature maps (padded
     # color/gray/gradient images). "bfloat16" halves plane_cost's HBM
-    # traffic — the dominant PatchMatch bytes (bench.py analytic model).
+    # traffic — the dominant PatchMatch bytes.
     # Features are 0..255 so bf16 quantizes to ~1 gray level; every L1 /
     # weight / accumulation happens in f32 after the loads. Quality gated
     # on the GT battery (tests/test_gt_battery.py::test_patchmatch_bf16).
@@ -295,23 +295,16 @@ class MSTConfig:
     volume_dtype: str = "float32"
     # Forest construction backend. "host": the exact sequential builder
     # (native/treebuild.cpp C++, pyforest.py fallback) — greedy top-down
-    # segment splits, 0.9-2 s per view at 2048x1536 on the host (hide it
-    # with apps/stream.py lookahead). "device": ops/device_forest.py —
+    # segment splits on the host (hide it with apps/stream.py
+    # lookahead). "device": ops/device_forest.py —
     # the whole segmentation -> MST -> Euler pipeline as one jitted XLA
     # program (Boruvka partition family, band-quantized segment splits
     # with the same rel_gd <= max_log_range guarantee); no host work in
     # the frame loop at all. Parity: tests/test_device_forest.py.
     forest_backend: str = "host"
-    # Segmented-scan backend for the tree-filter prefix passes. "xla":
-    # blocked triangular-matmul scans (~5 HBM traversals per scan).
-    # "pallas": fused kernel with VMEM-resident segment carries
-    # (ops/mst_scan_pallas.py) — read + write only, the scan-internal
-    # correction gathers never leave VMEM. Same 256-block reassociation;
-    # parity in tests/test_mst_pallas.py.
-    scan_backend: str = "xla"
 
 
-def production_mst_config(max_disp: int, on_tpu: bool = True, **overrides) -> MSTConfig:
+def production_mst_config(max_disp: int, **overrides) -> MSTConfig:
     """The measured production recipe for 3DMST refinement in the
     SGBM-seeded composition (models/sgbm_mst.py) — every choice gated on
     the absolute-GT battery (tests/test_mst_seeded.py, PARITY.md):
@@ -323,10 +316,6 @@ def production_mst_config(max_disp: int, on_tpu: bool = True, **overrides) -> MS
       noise floor. Measured GT quality is unchanged at half AND VGA
       scale (EPE within 0.003); cuts every tree_filter from 3 to 2
       scan rounds (1/3 of the scan bytes).
-    - scan_backend="pallas" on TPU: VMEM-resident segment carries, ~2
-      HBM traversals per scan instead of ~5 (compiles and runs at
-      1280x960x128 through the bench harness); "xla" off-TPU (the
-      Pallas kernel needs a real TPU unless interpret=True).
 
     The matching candidate budget (max_neighbors=2 + the truncated
     ladder) lives at the call sites' defaults — see
@@ -339,7 +328,6 @@ def production_mst_config(max_disp: int, on_tpu: bool = True, **overrides) -> MS
         max_disp=max_disp,
         volume_dtype="bfloat16",
         carry_iters=1,
-        scan_backend="pallas" if on_tpu else "xla",
     )
     kw.update(overrides)
     return MSTConfig(**kw)

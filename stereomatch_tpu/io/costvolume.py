@@ -9,8 +9,8 @@ commented alternative there, and RemoveNanFromCostVolume,
 src/PatchMatchStereoGPU.cu:4713-4745, which uses NaN->1.0 and also derives
 an ambiguity map = mean cost < 0.8).
 
-This module reads that format into (H, W, D) arrays — disparity last so the
-volume lays out on TPU with D on the 128-wide lane dimension.
+This module reads that format into (H, W, D) arrays — disparity last, the
+layout every cost volume in this package uses.
 """
 
 from __future__ import annotations

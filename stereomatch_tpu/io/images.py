@@ -2,7 +2,9 @@
 
 Replaces the reference's lodepng path (`loadPNG`/`savePNG`/`imgCharToFloat`,
 src/PatchMatchStereoGPU.cu:9414-9477, include/lodepng.h) and cv::imread /
-imwrite usage with PIL-backed loading. Images are kept as float32 arrays in
+imwrite usage with PIL-backed loading (Pillow is the optional `io`
+extra: it is imported on the first load or save, so the rest of the
+package runs without it). Images are kept as float32 arrays in
 [0, 255], channel-last RGB, matching the numeric ranges the reference
 kernels operate in.
 """
@@ -10,7 +12,6 @@ kernels operate in.
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
 
 __all__ = [
     "load_image",
@@ -26,9 +27,19 @@ __all__ = [
 _GRAY_R, _GRAY_G, _GRAY_B = 0.299, 0.587, 0.114
 
 
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "image file I/O needs Pillow: pip install 'stereomatch-tpu[io]'"
+        ) from e
+    return Image
+
+
 def load_image(path: str, gray: bool = False) -> np.ndarray:
     """Load an image as float32. RGB (H, W, 3) in [0,255], or (H, W) gray."""
-    img = Image.open(path)
+    img = _pil_image().open(path)
     if gray:
         img = img.convert("L")
         return np.asarray(img, dtype=np.float32)
@@ -38,7 +49,7 @@ def load_image(path: str, gray: bool = False) -> np.ndarray:
 
 def save_image(path: str, img: np.ndarray) -> None:
     arr = np.clip(np.round(np.asarray(img)), 0, 255).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    _pil_image().fromarray(arr).save(path)
 
 
 def save_disparity_png(path: str, disp: np.ndarray, max_disp: float | None = None) -> None:

@@ -1,15 +1,15 @@
 """Stereo3DMST pipeline: segment-tree aggregation with 3D plane labels.
 
-TPU-native equivalent of the reference's `stereo3dmst` entry point
+Data-parallel equivalent of the reference's `stereo3dmst` entry point
 (src/Stereo3DMST.cpp:714-912, call stack SURVEY.md §3.2):
 
   1. median-blur the color channels (3x3, ref :226-228), build 4-neighbor
      L1 color edge weights (:242-282);
   2. Felzenszwalb segmentation + small-component merge + per-component MST
      forest — on the HOST via the native C++ builder (native/treebuild.cpp),
-     which also emits the Euler-tour arrays the TPU tree filter needs;
+     which also emits the Euler-tour arrays the device tree filter needs;
   3. 100 iterations of MST_PMS plane-label optimization for each view —
-     on TPU, all trees and candidates batched (ops/mst.py);
+     on the device, all trees and candidates batched (ops/mst.py);
   4. disparity from labels, clamp01 * (Dmax-1) (:189-201, :900-902), then
      left-right consistency check without fill (:904).
 
@@ -260,13 +260,10 @@ def _seed_min_cost(vol, a0, b0, c0, fa, cfg: MSTConfig):
     from ..ops.mst import aggregation_norm_inv, label_cost, tree_filter
 
     mc0 = tree_filter(
-        label_cost(vol, a0, b0, c0, fa, cfg.max_disp), fa, cfg.carry_iters,
-        cfg.scan_backend,
+        label_cost(vol, a0, b0, c0, fa, cfg.max_disp), fa, cfg.carry_iters
     )
     if cfg.normalize_aggregation:
-        mc0 = mc0 * aggregation_norm_inv(
-            fa, cfg.carry_iters, cfg.scan_backend
-        )
+        mc0 = mc0 * aggregation_norm_inv(fa, cfg.carry_iters)
     return mc0
 
 

@@ -3,8 +3,9 @@
 Currently: the 3DMST segment-forest builder (treebuild.cpp) — the graph /
 tree-construction stage that the reference implements with Boost.Graph and
 union-find on the CPU (src/Stereo3DMST.cpp:213-543, include/segment-graph.h).
-The hot label-optimization loop runs on TPU (ops/mst.py); this builder runs
-once per frame on the host and emits flat arrays the TPU kernels consume.
+The hot label-optimization loop runs on the device (ops/mst.py); this
+builder runs once per frame on the host and emits the flat arrays it
+consumes.
 """
 
 from __future__ import annotations

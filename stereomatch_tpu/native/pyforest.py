@@ -3,7 +3,7 @@
 When the C++ builder (treebuild.cpp) cannot be compiled, the 3DMST
 pipeline still needs a segment forest in the exact Forest contract
 (segment-contiguous DFS node order + Euler positions). This module builds
-one from a partition computed by the TPU-resident Borůvka segmentation
+one from a partition computed by the device-resident Borůvka segmentation
 (ops/segmentation.py — the parallel member of the Felzenszwalb family,
 SURVEY §7.6): per-component minimum spanning trees via Kruskal restricted
 to within-component edges, then the same weighted-depth segment splitting,
@@ -192,7 +192,7 @@ def forest_from_labels(labels: np.ndarray, wr: np.ndarray, wd: np.ndarray,
 
 def build_forest_fallback(edge_w_right, edge_w_down, c, min_size, gamma,
                           delta=40.0):
-    """Drop-in for native.build_forest: Borůvka partition (TPU) + Python
+    """Drop-in for native.build_forest: Borůvka partition (device) + Python
     forest construction. Used by build_forest when the .so can't build."""
     from ..ops.segmentation import boruvka_segment
 

@@ -7,9 +7,9 @@
 //   - per-component join-forest = Kruskal MST (edges processed in ascending
 //     weight order), flattened to parent/weight arrays instead of
 //     Boost adjacency lists (reference: src/Stereo3DMST.cpp:434-522)
-//   - NEW for the TPU formulation: segment-contiguous DFS (Euler tour)
+//   - NEW for the data-parallel formulation: segment-contiguous DFS (Euler tour)
 //     numbering with weighted-depth splitting at `delta` (= gamma * path
-//     weight), so the TPU-side tree filter can run as prefix sums with
+//     weight), so the device-side tree filter can run as prefix sums with
 //     exp-factorized path weights that stay in fp32 range. Contributions
 //     across a split are <= exp(-delta) (~4e-18 at delta=40) — numerically
 //     zero in the reference's own accumulation.

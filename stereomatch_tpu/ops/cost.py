@@ -1,6 +1,6 @@
 """Matching-cost construction: census, AD+gradient BGR, ZNCC/AD/AGD volumes.
 
-TPU-native replacements for the reference's "Family B" CUDA kernels and CPU
+Data-parallel replacements for the reference's "Family B" CUDA kernels and CPU
 census (ref: src/StereoMatching.cpp:27-114, src/PatchMatchStereoGPU.cu:1294-1632).
 The per-row shared-memory staging of the CUDA kernels collapses into whole-
 image shifted-stack arithmetic that XLA fuses; the census Hamming cost is
@@ -46,8 +46,7 @@ def shifted_stack(img: jax.Array, num_disp: int, sign: int, min_disp: int = 0):
     axis is inserted after W.
 
     Implemented as NUM_DISP static slices of an edge-padded image rather
-    than one big gather — XLA lowers slices to cheap copies while gathers
-    on the lane dimension serialize on TPU.
+    than one big gather — XLA lowers slices to cheap copies.
     """
     w = img.shape[1]
     lo = min(sign * min_disp, sign * (min_disp + num_disp - 1), 0)

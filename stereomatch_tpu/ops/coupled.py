@@ -1,6 +1,6 @@
 """Coupled PatchMatch <-> variational data-step kernels (Family E live set).
 
-TPU-native assembly of the reference's hybrid data-step machinery that was
+Data-parallel assembly of the reference's hybrid data-step machinery that was
 left disconnected in round 1:
 
   - `hybrid_plane_cost` — evaluateCost_huber's LIVE branch

@@ -40,8 +40,8 @@ Stage map (reference counterparts in src/Stereo3DMST.cpp):
    Euler in/out events follow in closed form from within-segment index,
    subtree size and segment depth (no second list ranking).
 
-Everything is int32/f32; composite sort keys are avoided (TPU jax runs
-with 32-bit types) in favor of 2-key variadic sorts and a vectorized
+Everything is int32/f32; composite sort keys are avoided (jax runs
+with 32-bit types by default) in favor of 2-key variadic sorts and a vectorized
 lexicographic binary search.
 """
 
@@ -65,7 +65,6 @@ from .segmentation import (
 __all__ = ["build_forest_device", "device_forest_arrays"]
 
 _SCAN_BLOCK = 256  # must match ops.mst._SCAN_BLOCK
-_PALLAS_B = 256  # must match ops.mst_scan_pallas._B
 
 
 def _ceil_log2(n: int) -> int:
@@ -427,8 +426,8 @@ def _lex_lower_bound(k1, k2, q1, q2, iters: int):
 
 
 # ---------------------------------------------------------------------------
-# scan-map construction (jnp ports of ops.mst._make_scan_maps and
-# ops.mst_scan_pallas.build_packed_scan_maps — same outputs, traced)
+# scan-map construction (jnp port of ops.mst._make_scan_maps — same
+# outputs, traced)
 # ---------------------------------------------------------------------------
 
 
@@ -457,24 +456,6 @@ def _scan_maps_jnp(reset: jax.Array, block: int = _SCAN_BLOCK) -> SegScanMaps:
         blk_has_corr=blk_has_corr,
         blk_corr_idx=blk_corr_idx,
     )
-
-
-def _packed_scan_maps_jnp(reset: jax.Array, block: int = _PALLAS_B) -> jax.Array:
-    m = reset.shape[0]
-    pad = (-m) % block
-    mp = m + pad
-    r = jnp.concatenate([reset, jnp.ones((pad,), bool)]) if pad else reset
-    idx = jnp.arange(mp, dtype=jnp.int32)
-    lrs = jax.lax.cummax(jnp.where(r, idx, -1))
-    blk_start = (idx // block) * block
-    has_corr = (lrs - 1) >= blk_start
-    corr_local = jnp.where(has_corr, lrs - 1 - blk_start, 0)
-    needs_carry = lrs < blk_start
-    return (
-        corr_local
-        | (has_corr.astype(jnp.int32) << 16)
-        | (needs_carry.astype(jnp.int32) << 17)
-    ).astype(jnp.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -701,8 +682,6 @@ def build_forest_device(
         "sub_end": pixels + s_sz,
         "nscan": _scan_maps_jnp(seg_first),
         "escan": _scan_maps_jnp(euler_reset),
-        "nscan_pk": _packed_scan_maps_jnp(seg_first),
-        "escan_pk": _packed_scan_maps_jnp(euler_reset),
         "num_trees_actual": num_trees_actual,
         "adj_total": adj_total,
         "labels": lab,
@@ -751,8 +730,6 @@ def device_forest_arrays(
         sub_end=raw["sub_end"],
         nscan=raw["nscan"],
         escan=raw["escan"],
-        nscan_pk=raw["nscan_pk"],
-        escan_pk=raw["escan_pk"],
         num_trees=tmax,
         height=height,
         width=width,

@@ -1,6 +1,6 @@
 """Separable box filters, guided filter, and small median filters.
 
-TPU-native replacements for the reference's CUDA "Family A" kernels
+Data-parallel replacements for the reference's CUDA "Family A" kernels
 (src/PatchMatchStereoGPU.cu:228-860) and "Family D" guided-filter stack
 (:7945-8772). The sliding-window/texture/shared-memory machinery collapses
 into cumsum-based integral sums that XLA fuses; the whole-volume filter

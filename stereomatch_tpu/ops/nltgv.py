@@ -1,6 +1,6 @@
 """Non-local second-order TGV (NL2TGV) refinement.
 
-TPU-native implementation of the reference's NL2TGV kernel family
+Data-parallel implementation of the reference's NL2TGV kernel family
 (src/PatchMatchStereoGPU.cu): InitNL2TGV (:4805-4826), InitAlpha1
 (:4829-4871), NL2TGV_primalUpdate (:4874-4955), NL2TGV_dualUpdate
 (:4958-5103), with the diagonal preconditioning of the kernels

@@ -1,6 +1,6 @@
 """Slanted-plane PatchMatch stereo as iterated parallel propagation.
 
-TPU-native re-design of the reference's two PatchMatch engines:
+Data-parallel re-design of the reference's two PatchMatch engines:
   - GPU kernel family (src/PatchMatchStereoGPU.cu:861-998 evaluateCost,
     :1740-2010 stereoMatching, :2602-3023 host): per-pixel slanted-plane
     cost with adaptive color weights exp(-L1/10) and a sign-of-gradient
@@ -134,8 +134,7 @@ def plane_cost(
         bgrad_p = jnp.pad(base_grad, pad_spec + ((0, 0),), mode="edge").astype(fdt)
         # match color + gradient coalesced into ONE (H, W, 5) feature map:
         # each tap then needs a single 5-channel x-interp gather pair
-        # instead of 5 separate per-channel gathers (gathers are the
-        # slowest memory op on TPU — the count matters, not just bytes)
+        # instead of 5 separate per-channel gathers
         mfeat_p = jnp.pad(
             jnp.concatenate([match_bgr, match_grad], axis=-1),
             pad_spec + ((0, 0),),
@@ -252,7 +251,7 @@ def plane_fill_occluded_best_cost(
     min-evaluateCost candidate, src/PatchMatchStereoGPU.cu:2190-2224; the
     donor's own disparity value is used directly, not plane-extended).
 
-    TPU redesign: instead of a serial +-cols/4 scan per pixel, the candidate
+    Parallel redesign: instead of a serial +-cols/4 scan per pixel, the candidate
     set is the k nearest valid pixels on each side (occlusions are
     contiguous spans, so near donors dominate the reference's scan), each
     found by iterating the nearest-valid index scan: L_{j+1}[x] =

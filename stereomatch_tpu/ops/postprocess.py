@@ -1,6 +1,6 @@
 """Post-processing: LR consistency, occlusion fill, weighted median.
 
-TPU-native replacements for the reference's post-process family:
+Data-parallel replacements for the reference's post-process family:
   - leftRightConsistencyCheck (CPU, src/Stereo3DMST.cpp:632-710)
   - leftRightCheck (GPU, src/PatchMatchStereoGPU.cu:2115-2153)
   - handleOcclusionSharedMemory nearest-valid min fill (.cu:1128-1288)

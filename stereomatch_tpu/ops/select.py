@@ -1,6 +1,6 @@
 """Disparity selection: WTA with parabola subpixel refinement.
 
-TPU-native replacement for the reference's selectDisparity kernel
+Data-parallel replacement for the reference's selectDisparity kernel
 (src/PatchMatchStereoGPU.cu:1688-1737): per-pixel argmin over the disparity
 axis (strict '<' so the first minimum wins ties), then a one-shot parabola
 fit through (pre, cur, next) costs. At the volume's d-boundaries the missing

@@ -1,6 +1,6 @@
 """Second-order TGV refinement with anisotropic diffusion tensor.
 
-TPU-native implementation of the reference's AL-TGV kernel family
+Data-parallel implementation of the reference's AL-TGV kernel family
 (src/PatchMatchStereoGPU.cu): anisotropicDiffusionTensorG (:4412-4487),
 AL_TGV_dualUpdate (:4491-4552), AL_TGV_computeGp (:4554-4566),
 AL_TGV_primalUpdate (:4568-4641), AL_TGV_augmentedLagranianUpdate

@@ -1,6 +1,6 @@
 """Variational refinement: weighted-Huber primal-dual disparity denoise.
 
-TPU-native replacement for the reference's "Family E" denoise path
+Data-parallel replacement for the reference's "Family E" denoise path
 (ref: variationalDisparityDenoise host loop, src/PatchMatchStereoGPU.cu:
 7809-7940; weightedHuberDenoiseDualUpdate / PrimalUpdate kernels
 :1042-1126; weight + normalize kernel perPixelWeightPlusNormalizeImg

@@ -7,7 +7,7 @@ dual-stream L/R) map onto a `jax.sharding.Mesh` here:
   axis "frame" — data parallel over stereo pairs (the FLIR sequence,
                  streaming-video config)
   axis "tile"  — spatial tiles of the image (rows); windowed ops exchange
-                 halos over ICI with `ppermute`
+                 halos with `ppermute`
   axes "tile_y" x "tile_x" x "dslab" — the full SURVEY §5 mesh (tiled2d):
                  2-D image tiles plus the H x W x D volume sharded over
                  disparity slabs, WTA = one argmin-combine collective

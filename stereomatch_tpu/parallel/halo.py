@@ -1,6 +1,6 @@
 """Halo exchange for row-tiled images (the image analog of context/ring
 parallelism — SURVEY.md §5 maps the reference's shared-memory row tiling,
-src/PatchMatchStereoGPU.cu:1302-1346, onto ICI collectives)."""
+src/PatchMatchStereoGPU.cu:1302-1346, onto device collectives)."""
 
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ def halo_exchange_rows(x: jax.Array, halo: int, axis_name: str) -> jax.Array:
     rows from each neighbor along `axis_name` (edge blocks get zero rows —
     callers that need edge replication can re-pad afterwards).
 
-    Uses two `ppermute`s over ICI (up and down neighbors), the standard
-    pattern for stencil halos on a TPU mesh.
+    Uses two `ppermute`s (up and down neighbors), the standard pattern
+    for stencil halos on a device mesh.
     """
     n = lax.axis_size(axis_name)
     if halo == 0 or n == 1:

@@ -1,7 +1,7 @@
-"""Multi-chip 3DMST: candidate batches sharded over the mesh.
+"""Multi-device 3DMST: candidate batches sharded over the mesh.
 
 The reference parallelizes MST_PMS with OpenMP over trees
-(src/Stereo3DMST.cpp:559, schedule(dynamic)). On a TPU mesh the natural
+(src/Stereo3DMST.cpp:559, schedule(dynamic)). On a device mesh the natural
 shard axis is the CANDIDATE batch instead: every iteration evaluates
 K = max_neighbors + n_refine independent label proposals with full-forest
 tree_filter passes, so device i evaluates the strided subset
@@ -100,7 +100,7 @@ def _body(
         nb = pb_[:, f.tree_id]
         nc = pc_[:, f.tree_id]
         cn = label_cost(cost_vol, na, nb, nc, f, max_disp)
-        agg = tree_filter(cn, f, cfg.carry_iters, cfg.scan_backend)  # (kloc, N)
+        agg = tree_filter(cn, f, cfg.carry_iters)  # (kloc, N)
         live = jnp.stack([j < k_total for j in local_js])
         agg = jnp.where(live[:, None], agg, jnp.inf)
 
@@ -299,7 +299,7 @@ def _body_sharded(
             max_disp,
         )  # (kloc, Nloc)
         cn = lax.all_gather(cn_loc, "node", axis=1, tiled=True)  # (kloc, N)
-        agg = tree_filter(cn, f, cfg.carry_iters, cfg.scan_backend)
+        agg = tree_filter(cn, f, cfg.carry_iters)
         if inv_norm is not None:
             agg = agg * inv_norm
         live = jnp.stack([j < k_total for j in local_js])
@@ -350,8 +350,8 @@ def mst_pms_optimize_mesh_sharded(
     init_state=None,
     refine_start: float | None = None,
 ):
-    """Memory-sharded multi-chip MST_PMS (VERDICT r2 weak #7: mst_mesh
-    scaled compute, not memory). The cost volume — the dominant tensor
+    """Memory-sharded multi-device MST_PMS (mst_pms_optimize_mesh scales
+    compute, not memory). The cost volume — the dominant tensor
     (3.2 GB f32 at 2048x1536x256) — lives sharded across the "node" axis
     in NODE order (volume_in_node_order), so each device holds N/n_node
     rows and label_cost gathers stay entirely shard-local; one ICI

@@ -1,9 +1,9 @@
-"""Multi-host composition: frames over DCN, tiles/slabs over ICI.
+"""Multi-host composition: frames across hosts, tiles/slabs within one.
 
 SURVEY §5's distributed design ends at mesh
 `(host, tile_y, tile_x, dslab)`: stereo pairs (the streaming FLIR
-sequence) distributed across hosts over DCN, and each frame's pixels /
-disparity slabs sharded across the host's chips over ICI. The reference
+sequence) distributed across hosts over the network, and each frame's
+pixels / disparity slabs sharded across the host's devices. The reference
 has no distributed story at all (§2.5: single process, single GPU); this
 module supplies the composition layer on top of parallel/tiled2d.py:
 

@@ -1,8 +1,8 @@
-"""Band-pipelined multi-chip SGBM: DP carries streamed over ICI.
+"""Band-pipelined multi-device SGBM: DP carries streamed between devices.
 
 SGBM's vertical/diagonal path recurrences couple every row to every other,
-so sharding ONE frame across chips serializes. The TPU answer (SURVEY.md §5:
-"scans with carry exchange between tile neighbors over ICI") is a SYSTOLIC
+so sharding ONE frame across devices serializes. The mesh answer (SURVEY.md §5:
+"scans with carry exchange between tile neighbors") is a SYSTOLIC
 PIPELINE over a microbatch of frames: the image rows are split into one
 band per device; a frame's up-sweep flows device n-1 -> 0 and its
 down-sweep 0 -> n-1, one band per macro-step, with the (ndir, W, D) Lr

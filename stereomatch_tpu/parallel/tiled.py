@@ -6,7 +6,7 @@ the mesh's "tile" axis with `shard_map`:
   - the AD+gradient cost is purely horizontal — each tile computes its own
     rows plus a recomputed halo band (cheaper than exchanging cost-volume
     halos: the halo is exchanged at the IMAGE level, 2*radius rows of
-    pixels over ICI, and the band's cost is recomputed locally);
+    pixels between devices, and the band's cost is recomputed locally);
   - the guided filter consumes the halo band and crops it off — interior
     results are bit-identical to the monolithic filter, and global edges
     reproduce its zero-padding via an explicit row mask;

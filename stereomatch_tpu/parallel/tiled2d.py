@@ -10,7 +10,7 @@ missing mesh axes:
     collectives beyond the row halo exchange over tile_y.
   - **dslab**: the (H, W, D) cost volume itself is sharded over D. Cost
     build and guided filtering are slice-local; WTA is one argmin-combine
-    collective (parallel/dslab.py) — the TPU analog of the reference's
+    collective (parallel/dslab.py) — the mesh analog of the reference's
     disparity-slice parallelism (src/PatchMatchStereoGPU.cu:8584-8617,
     :8733-8769).
 

@@ -112,7 +112,7 @@ def mst_pipeline(
     bgr_l = to_bgr255(left)
     bgr_r = to_bgr255(right)
     if left_vol is None or right_vol is None:
-        from .apps.stereo_yin import builtin_cost_volumes
+        from .models.costvolume import builtin_cost_volumes
 
         rgb_l = jnp.asarray(np.asarray(left, np.float32))
         rgb_r = jnp.asarray(np.asarray(right, np.float32))
@@ -144,7 +144,7 @@ def sgbm_mst_pipeline(
     bgr_l = to_bgr255(left)
     bgr_r = to_bgr255(right)
     if left_vol is None or right_vol is None:
-        from .apps.stereo_yin import builtin_cost_volumes
+        from .models.costvolume import builtin_cost_volumes
 
         rgb_l = jnp.asarray(np.asarray(left, np.float32))
         rgb_r = jnp.asarray(np.asarray(right, np.float32))

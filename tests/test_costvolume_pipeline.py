@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from stereomatch_tpu.config import (
     CostVolumeConfig,
@@ -42,6 +43,7 @@ def test_pipeline_recovers_constant_shift(rng):
     assert np.abs(raw_r - true_d).mean() < 0.5
 
 
+@pytest.mark.requires_reference
 def test_pipeline_flir_smoke(flir_pair):
     """Run the production-shaped pipeline on a real (downsampled) FLIR pair
     and check output sanity: finite, in range, nontrivial variation."""

@@ -193,14 +193,9 @@ def test_tree_filter_matches_direct_recurrence(rng, delta):
 
 def test_scan_maps_match_host_construction():
     """The traced jnp scan maps equal the host numpy construction for the
-    same reset vector (both the XLA SegScanMaps and the packed Pallas
-    stream)."""
-    from stereomatch_tpu.ops.device_forest import (
-        _packed_scan_maps_jnp,
-        _scan_maps_jnp,
-    )
+    same reset vector."""
+    from stereomatch_tpu.ops.device_forest import _scan_maps_jnp
     from stereomatch_tpu.ops.mst import _make_scan_maps
-    from stereomatch_tpu.ops.mst_scan_pallas import build_packed_scan_maps
 
     rng = np.random.default_rng(5)
     reset = rng.random(700) < 0.2
@@ -209,9 +204,6 @@ def test_scan_maps_match_host_construction():
     got = _scan_maps_jnp(jnp.asarray(reset))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    np.testing.assert_array_equal(
-        build_packed_scan_maps(reset), np.asarray(_packed_scan_maps_jnp(jnp.asarray(reset)))
-    )
 
 
 def test_optimize_with_device_forest_recovers_plane(rng):

@@ -10,21 +10,59 @@ from stereomatch_tpu.geometry import (
     stereo_rectify,
     undistort_points,
 )
-from stereomatch_tpu.io import load_stereo_calibration
+from stereomatch_tpu.io import StereoCalibration, load_stereo_calibration
 
-REF = "/root/reference"
+from conftest import REFERENCE, require_reference
 
 cv2 = pytest.importorskip("cv2")
 
 
+def _synthetic_calibration(seed: int, size, rational: bool) -> StereoCalibration:
+    """A seeded stereo rig shaped like the reference's two: a pinhole
+    camera pair with OpenCV's 5 distortion coefficients (the pheno rig,
+    2048x1536) or the 14-coefficient rational model with thin-prism terms
+    (the FLIR rig, 1280x960; the tilt pair stays 0, which the rectifier
+    does not model). Rotation of ~0.6 deg, ~12 cm baseline in mm."""
+    r = np.random.default_rng(seed)
+    w, h = size
+
+    def intrinsics():
+        f = w * r.uniform(1.0, 1.3)
+        return np.array([
+            [f, 0.0, w / 2 + r.uniform(-20, 20)],
+            [0.0, f * r.uniform(0.995, 1.005), h / 2 + r.uniform(-20, 20)],
+            [0.0, 0.0, 1.0],
+        ])
+
+    def distortion():
+        k1, k2, k3 = r.uniform(-0.2, 0.1), r.uniform(-0.05, 0.1), r.uniform(-0.01, 0.01)
+        p1, p2 = r.normal(0.0, 1e-3, 2)
+        if not rational:
+            return np.array([[k1, k2, p1, p2, k3]])
+        k4, k5, k6 = r.uniform(-0.2, 0.1), r.uniform(-0.05, 0.05), r.uniform(-0.01, 0.01)
+        s1, s2, s3, s4 = r.normal(0.0, 1e-3, 4)
+        return np.array([[k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4, 0.0, 0.0]])
+
+    M1, D1, M2, D2 = intrinsics(), distortion(), intrinsics(), distortion()
+    R = rodrigues(r.normal(0.0, 0.006, 3))
+    T = np.array([-r.uniform(100.0, 140.0), r.normal(0.0, 1.0), r.normal(0.0, 1.0)])
+    return StereoCalibration(M1=M1, D1=D1, M2=M2, D2=D2, R=R, T=T)
+
+
 @pytest.fixture(scope="module")
 def pheno():
-    return load_stereo_calibration(f"{REF}/cam_stereo_pheno.yml")
+    return _synthetic_calibration(1, (2048, 1536), rational=False)
 
 
 @pytest.fixture(scope="module")
 def flir():
-    return load_stereo_calibration(f"{REF}/FLIR_stereo_para.xml")
+    return _synthetic_calibration(2, (1280, 960), rational=True)
+
+
+@pytest.fixture(scope="module")
+def stored_pheno():
+    require_reference()
+    return load_stereo_calibration(f"{REFERENCE}/cam_stereo_pheno.yml")
 
 
 class TestRodrigues:
@@ -93,9 +131,11 @@ class TestStereoRectify:
         assert ours.roi1 == tuple(roi1)
         assert ours.roi2 == tuple(roi2)
 
-    def test_matches_stored_pheno(self, pheno):
+    @pytest.mark.requires_reference
+    def test_matches_stored_pheno(self, stored_pheno):
         """The pheno YAML carries precomputed R1/R2/P1/P2/Q — check we agree
         on rotations (P/Q depend on the image size used at calibration)."""
+        pheno = stored_pheno
         ours = stereo_rectify(
             pheno.M1, pheno.D1, pheno.M2, pheno.D2, (2048, 1536), pheno.R, pheno.T
         )
@@ -137,13 +177,13 @@ class TestRemap:
 
 class TestEndToEndRectification:
     def test_full_pipeline_vs_cv2(self, pheno):
-        """rectified_geometry + remap on a real FLIR frame == cv2 pipeline."""
-        from stereomatch_tpu.io import load_image
+        """rectified_geometry + remap on a textured frame == cv2 pipeline."""
+        from stereomatch_tpu.synthetic import render_scene
 
-        img = load_image(f"{REF}/build/000020_191400042.jpg")[::4, ::4]
+        img = render_scene(3, 384, 512, 32).left
         h, w = img.shape[:2]
         geo = rectified_geometry(pheno, (w, h))
-        # NB: calibration was for full-res; this still exercises identical math
+        # NB: calibration is for full-res; this still exercises identical math
         ours = np.asarray(remap_bilinear(img, geo.map1x, geo.map1y))
         R1, R2, P1, P2, Q, _, _ = cv2.stereoRectify(
             pheno.M1, pheno.D1, pheno.M2, pheno.D2, (w, h), pheno.R, pheno.T.reshape(3, 1),
@@ -160,7 +200,9 @@ class TestEndToEndRectification:
 class TestReproject:
     def test_matches_cv2(self, pheno, rng):
         disp = rng.uniform(1, 60, size=(24, 32)).astype(np.float32)
-        Q = pheno.Q
+        Q = stereo_rectify(
+            pheno.M1, pheno.D1, pheno.M2, pheno.D2, (2048, 1536), pheno.R, pheno.T
+        ).Q
         ours = np.asarray(reproject_image_to_3d(disp, Q))
         theirs = cv2.reprojectImageTo3D(disp, Q)
         np.testing.assert_allclose(ours, theirs, rtol=1e-4, atol=1e-5)

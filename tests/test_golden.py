@@ -5,7 +5,7 @@ eval metric functions."""
 import numpy as np
 import pytest
 
-from conftest import REFERENCE, requires_reference
+from conftest import REFERENCE
 
 from stereomatch_tpu.eval import (
     bad_pixel_rate,
@@ -30,7 +30,7 @@ def test_metrics_basics(rng):
     assert d1_all(gt, gt) == 0.0
 
 
-@requires_reference
+@pytest.mark.requires_reference
 def test_reference_golden_loads_but_is_saturated():
     """The reference's committed left_disparity.png (written by its pm
     path, stereo_opencv.cpp:167-168, MAX_DISPARITY=60 at full resolution)

@@ -1,4 +1,4 @@
-"""Absolute ground-truth accuracy battery (VERDICT r2 #5).
+"""Absolute ground-truth accuracy battery.
 
 Every engine is gated on EPE / bad-pixel / D1 against ANALYTICALLY EXACT
 subpixel ground truth from procedural scenes (stereomatch_tpu/synthetic.py:

@@ -22,6 +22,7 @@ from stereomatch_tpu.io import (
 REF = "/root/reference"
 
 
+@pytest.mark.requires_reference
 class TestCalibration:
     def test_yaml_pheno(self):
         d = load_filestorage(f"{REF}/cam_stereo_pheno.yml")
@@ -61,12 +62,14 @@ class TestCalibration:
 
 
 class TestImages:
+    @pytest.mark.requires_reference
     def test_load_flir(self):
         img = load_image(f"{REF}/build/000020_191400042.jpg")
         assert img.shape == (1536, 2048, 3)
         assert img.dtype == np.float32
         assert 0 <= img.min() and img.max() <= 255
 
+    @pytest.mark.requires_reference
     def test_gray_matches_cv2(self):
         cv2 = pytest.importorskip("cv2")
         img = load_image(f"{REF}/build/000020_191400042.jpg")[::8, ::8]

@@ -8,10 +8,14 @@ import pytest
 
 from stereomatch_tpu.native import build_forest, color_edge_weights
 from stereomatch_tpu.ops.mst import (
+    _make_scan_maps,
+    _segmented_cumsum_mm,
     forest_arrays,
     label_cost,
     labels_to_disparity,
     mst_pms_optimize,
+    segmented_cumsum_reference,
+    segmented_cumsum_tolerance,
     tree_filter,
 )
 from stereomatch_tpu.config import MSTConfig
@@ -150,6 +154,29 @@ def _reference_two_pass(f, cost_node, gamma_):
         if parent[i] != i:
             down[i] = w[i] * down[parent[i]] + (1.0 - w[i] * w[i]) * up[i]
     return down
+
+
+@pytest.mark.parametrize(
+    "m,mean_seg,batch,lo",
+    [
+        (1000, 7, (), -0.3),       # short segments, non-multiple length, no batch
+        (4096, 900, (3,), -0.3),   # segments spanning many 256-blocks
+        (700, 40, (13,), -0.3),    # wide batch
+        (256, 256, (2, 2), -0.3),  # exactly one block, nested batch dims
+        (2000, 23, (2,), -0.5),    # zero-mean values: cancelling prefixes
+    ],
+)
+def test_segmented_cumsum_matches_float64_oracle(rng, m, mean_seg, batch, lo):
+    """The blocked triangular-matmul scan against a per-segment float64
+    numpy cumsum, within the error bound its docstring derives."""
+    reset = rng.random(m) < 1.0 / mean_seg
+    reset[0] = True
+    x = (rng.random(batch + (m,)) + lo).astype(np.float32)
+    got = np.asarray(_segmented_cumsum_mm(jnp.asarray(x), _make_scan_maps(reset)))
+    want = segmented_cumsum_reference(x, reset)
+    assert got.shape == x.shape
+    err = np.abs(got - want)
+    assert (err <= segmented_cumsum_tolerance(x, reset)).all(), err.max()
 
 
 def test_tree_filter_matches_reference_recurrence(rng):

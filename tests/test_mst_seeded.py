@@ -166,7 +166,7 @@ def test_sgbm_mst_production_config_gt(half_scene):
     lv, rv = np.asarray(lv), np.asarray(rv)
     s = 0.5 / max(lv.max(), rv.max())
     cfg = production_mst_config(
-        32, on_tpu=False, iterations=30, min_cc_size=100, c=2000.0
+        32, iterations=30, min_cc_size=100, c=2000.0
     )
     assert cfg.carry_iters == 1 and cfg.volume_dtype == "bfloat16"
     out = sgbm_mst_stereo(

@@ -83,8 +83,7 @@ def _oracle_partition_stats(wr, wd, c, min_size):
 
 def test_boruvka_statistical_parity_with_oracle(rng):
     """Borůvka batches Felzenszwalb's threshold updates, so the partition
-    differs edge-by-edge; the gate is STATISTICAL (VERDICT round-1 weak
-    #3): component count within ~2x of the sequential oracle and the
+    differs edge-by-edge; the gate is STATISTICAL: component count within ~2x of the sequential oracle and the
     min-size rule respected. (Known family difference, documented in
     ops/segmentation.py: Kruskal's strict ascending order ratchets one
     component's threshold edge by edge and tends to grow a single giant

@@ -2,7 +2,7 @@
 
 The reference has no serving story — each engine is a per-frame
 executable main (src/stereo_opencv.cpp:93-176). These tests cover the
-TPU-native replacement: compile-before-data, executable introspection,
+replacement: compile-before-data, executable introspection,
 ticketed async submission with backpressure, and the production
 SGBM-seeded-3DMST server end to end at a tiny shape.
 """
@@ -49,7 +49,7 @@ class TestCompiledPipeline:
         assert pipe.in_specs[0].shape == (4, 8)
 
     def test_serialize_deserialize_roundtrip(self):
-        """AOT executable serialization (VERDICT r4 #7): a restarted
+        """AOT executable serialization: a restarted
         process loads the serialized executable instead of recompiling
         — bit-identical outputs, specs preserved. XLA:CPU's AOT loader
         is broken on some hosts (compile-time machine features like
@@ -83,7 +83,7 @@ def test_server_executable_cache_roundtrip(tmp_path):
 
     H, W, D = 48, 64, 16
     cfg = production_mst_config(
-        D, on_tpu=False, min_cc_size=20, c=800.0, forest_backend="device"
+        D, min_cc_size=20, c=800.0, forest_backend="device"
     )
     cache = str(tmp_path / "exec_cache")
     srv1 = compile_sgbm_mst_server(
@@ -148,7 +148,7 @@ class TestSgbmMstServer:
         from stereomatch_tpu.config import production_mst_config
 
         cfg = production_mst_config(
-            self.D, on_tpu=False, min_cc_size=20, c=800.0
+            self.D, min_cc_size=20, c=800.0
         )
         return compile_sgbm_mst_server(
             self.H, self.W, cfg=cfg, fine_iterations=2, capacity=2
@@ -202,7 +202,7 @@ class TestSgbmMstServer:
         from stereomatch_tpu.serving import StagedPipeline
 
         cfg = production_mst_config(
-            self.D, on_tpu=False, min_cc_size=20, c=800.0
+            self.D, min_cc_size=20, c=800.0
         )
         staged = compile_sgbm_mst_server(
             self.H, self.W, cfg=cfg, fine_iterations=2, capacity=2,
@@ -226,7 +226,7 @@ class _Poison:
     materializing it raises, like np.asarray on a dead jax.Array."""
 
     def __array__(self, dtype=None, copy=None):
-        raise RuntimeError("UNAVAILABLE: TPU worker process crashed")
+        raise RuntimeError("UNAVAILABLE: worker process crashed")
 
 
 class _FlakyPipeline:
@@ -343,7 +343,7 @@ def test_video_server_refine_path_absolute_gt_sequence():
     H, W, D = 120, 160, 24
     seq = render_sequence(2, 3, H, W, D, drift=2.0)
     cfg = production_mst_config(
-        D, on_tpu=False, min_cc_size=100, c=2000.0, forest_backend="device"
+        D, min_cc_size=100, c=2000.0, forest_backend="device"
     )
     srv = compile_mst_video_server(
         H, W, cfg=cfg, fine_iterations=4, temporal_iterations=2,
@@ -379,7 +379,7 @@ def test_video_server_reuse_forest_absolute_gt_sequence():
     H, W, D = 120, 160, 24
     seq = render_sequence(2, 3, H, W, D, drift=2.0)
     cfg = production_mst_config(
-        D, on_tpu=False, min_cc_size=100, c=2000.0, forest_backend="device"
+        D, min_cc_size=100, c=2000.0, forest_backend="device"
     )
     srv = compile_mst_video_server(
         H, W, cfg=cfg, fine_iterations=4, temporal_iterations=2,
@@ -429,7 +429,7 @@ def test_server_raw_volume_mode_absolute_gt():
     H, W, D = 120, 160, 24
     sc = render_scene(3, H, W, D)
     cfg = production_mst_config(
-        D, on_tpu=False, min_cc_size=100, c=2000.0, forest_backend="device"
+        D, min_cc_size=100, c=2000.0, forest_backend="device"
     )
     srv = compile_sgbm_mst_server(
         H, W, cfg=cfg, fine_iterations=4, volume_guided=False)
@@ -465,7 +465,7 @@ def test_video_server_scene_cut_detection():
     # the co-valid fraction 55%->18% and triggers at the same 0.6)
     cut_l, cut_r = sc_a.left[:, ::-1], sc_a.right[:, ::-1]
     cfg = production_mst_config(
-        D, on_tpu=False, min_cc_size=100, c=2000.0, forest_backend="device"
+        D, min_cc_size=100, c=2000.0, forest_backend="device"
     )
     kwargs = dict(cfg=cfg, fine_iterations=4, temporal_iterations=2,
                   temporal_refine_start=4.0, reuse_forest=True)
@@ -492,14 +492,14 @@ def test_video_server_scene_cut_detection():
 
 
 def test_video_server_raw_volume_reuse_forest_absolute_gt_sequence():
-    """The bench headline configuration END TO END: raw adgrad volume
+    """The production stream configuration END TO END: raw adgrad volume
     (volume_guided=False — the reference's own 3DMST consumes its
     mc-cnn volume unfiltered, src/stereo_Yin.cpp:150-210) AND
     reuse_forest=True (temporal frames refine on the keyframe's stale
     forests). Each flag is GT-gated separately above; this gates the
     COMBINATION on the moving sequence at the same absolute thresholds,
-    so the composed throughput claim in bench.py's
-    sgbm_plus_mst_video_full entry rests on a tested configuration."""
+    so the configuration chip_smoke.py serves at full size rests on a
+    tested one."""
     from stereomatch_tpu.config import production_mst_config
     from stereomatch_tpu.eval import disparity_metrics
     from stereomatch_tpu.ops.postprocess import lr_consistency
@@ -508,7 +508,7 @@ def test_video_server_raw_volume_reuse_forest_absolute_gt_sequence():
     H, W, D = 120, 160, 24
     seq = render_sequence(2, 3, H, W, D, drift=2.0)
     cfg = production_mst_config(
-        D, on_tpu=False, min_cc_size=100, c=2000.0, forest_backend="device"
+        D, min_cc_size=100, c=2000.0, forest_backend="device"
     )
     srv = compile_mst_video_server(
         H, W, cfg=cfg, fine_iterations=4, temporal_iterations=2,
@@ -540,7 +540,7 @@ def test_video_server_reuse_forest_staged_matches_fused():
     H, W, D = 96, 128, 16
     seq = render_sequence(2, 2, H, W, D, drift=2.0)
     cfg = production_mst_config(
-        D, on_tpu=False, min_cc_size=20, c=800.0, forest_backend="device"
+        D, min_cc_size=20, c=800.0, forest_backend="device"
     )
     kw = dict(cfg=cfg, fine_iterations=2, temporal_iterations=1,
               reuse_forest=True)
@@ -620,7 +620,7 @@ class TestVideoServer:
         from stereomatch_tpu.config import production_mst_config
 
         cfg = production_mst_config(
-            self.D, on_tpu=False, min_cc_size=20, c=800.0
+            self.D, min_cc_size=20, c=800.0
         )
         return compile_mst_video_server(
             self.H, self.W, cfg=cfg, fine_iterations=2,
@@ -674,7 +674,7 @@ class TestVideoServer:
         from stereomatch_tpu.serving import StagedPipeline
 
         cfg = production_mst_config(
-            self.D, on_tpu=False, min_cc_size=20, c=800.0
+            self.D, min_cc_size=20, c=800.0
         )
         staged = compile_mst_video_server(
             self.H, self.W, cfg=cfg, fine_iterations=2,

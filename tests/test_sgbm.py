@@ -148,6 +148,7 @@ def test_sgbm_recovers_truth():
     assert (err < 1.0).mean() > 0.9
 
 
+@pytest.mark.requires_reference
 def test_sgbm_vs_opencv_flir():
     """Real-image parity gate vs cv2 on a bundled FLIR pair (downsampled).
 

@@ -65,12 +65,13 @@ def test_tgv2_denoises_piecewise_planar(rng):
     assert np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0
 
 
+@pytest.mark.requires_reference
 def test_lsd_line_mask_agreement():
     """Quantified fidelity of the gradient line_response stand-in vs the
     reference's real LSD mask (cv2 LSD_REFINE_ADV + 1px draw + sigma-1
     Gaussian, .cu:6368-6396) on the real FLIR frame: >= 85% of LSD line
     pixels must fall inside the dilated line_response support, and both
-    masks select sparse structure (VERDICT r2 missing #2)."""
+    masks select sparse structure."""
     cv2 = pytest.importorskip("cv2")
     from stereomatch_tpu.io import load_image
     from stereomatch_tpu.ops.tgv import line_response, lsd_line_mask
